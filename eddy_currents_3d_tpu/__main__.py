@@ -5,7 +5,7 @@ directory (EC3D.f90:5, 86-89); this CLI reproduces that workflow — default
 input ``in.vxc``, output directory from the case's ``SOLVER DIR`` line
 (``vxc2data.f90:74`` default ``out``), parsed-parameter and matrix-stats
 prints, the 1% ``>`` progress ticker, and the final ``Tcalc`` wall-time
-print — plus the TPU-native extras (dtype, device mesh, preconditioning,
+print — plus the accelerator extras (dtype, device mesh, preconditioning,
 checkpoint/resume) behind flags.
 """
 
@@ -29,7 +29,7 @@ def _dtype(name: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m eddy_currents_3d_tpu",
-        description="TPU-native 3D time-domain eddy-current simulation "
+        description="3D time-domain eddy-current simulation on JAX "
         "(VoxCad .vxc input, legacy-VTK output).",
     )
     p.add_argument("vxc", nargs="?", default="in.vxc",
@@ -107,6 +107,9 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
 
     from .models.vxc import read_vxc
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from .sim.simulate import Simulation
 
     model = read_vxc(args.vxc)
@@ -157,7 +160,7 @@ def main(argv=None) -> int:
         dev = jax.devices()[0]
         ndev = mesh.devices.size if mesh is not None else 1
         print(f"backend   : {dev.platform} x{ndev}, dtype={args.dtype}, "
-              f"kernels={'coded' if sim.coded_op is not None else 'pallas' if sim.pallas_op is not None else 'jnp'}"
+              f"operator={sim.operator_name}"
               f"{', precond=' + args.precond if args.precond else ''}")
         if output_dir:
             print(f"output    : {output_dir}/field_N.vtk, src_N.vtk")

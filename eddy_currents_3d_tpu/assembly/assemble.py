@@ -378,7 +378,7 @@ def assemble_operator(model: Model, dtype=jnp.float32,
 def to_csr(system: AssembledSystem, model: Model):
     """Export the stencil operator as a scipy CSR matrix in the reference's
     global numbering [Ax | Ay | Az | U] (EC3D.f90:503, 973-986) — for tests
-    and interop, not the TPU hot path."""
+    and interop, not the device hot path."""
     from scipy import sparse
 
     nz, ny, nx = system.shape_zyx

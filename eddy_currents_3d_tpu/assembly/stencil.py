@@ -1,11 +1,11 @@
-"""Block stencil (DIA) operator — the TPU-native form of the global matrix.
+"""Block stencil (DIA) operator — the device form of the global matrix.
 
 The reference assembles one global CSR matrix over unknowns
 ``[Ax | Ay | Az | U]`` (EC3D.f90:465-1049) and applies it with a gather-based
-SpMV (solvers.f90:54-61).  Gathers are hostile to the TPU memory system, so
-here the same linear operator is stored as *dense per-offset coefficient
-fields* over the voxel grid and applied as a fused sum of shifted
-multiply-adds — a pure HBM-streaming computation that XLA fuses into a
+SpMV (solvers.f90:54-61).  Gathers waste an accelerator's memory bandwidth,
+so here the same linear operator is stored as *dense per-offset
+coefficient fields* over the voxel grid and applied as a fused sum of
+shifted multiply-adds — a pure streaming computation that XLA fuses into a
 few passes and that shards trivially over a device mesh (z-slab sharding;
 the shifts along z become collective permutes).
 

@@ -1,40 +1,24 @@
 """ctypes bindings to the native IO engine (native/ecio.cpp).
 
-The shared library is looked up next to this module (built by
-``make -C native``); if missing, an in-tree build is attempted once (g++
-is in the image).  All entry points return None gracefully when the native
-path is unavailable so callers fall back to the numpy writers — outputs
-are byte-identical either way (tested)."""
+The shared library lives next to this module under a name keyed on the
+source's hash and is built with g++ on first use (utils/native_build.py).
+All entry points return None gracefully when the native path is
+unavailable so callers fall back to the numpy writers — outputs are
+byte-identical either way (tested)."""
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 
 import numpy as np
 
+from ..utils.native_build import load
+
 __all__ = ["get_lib", "write_field_native", "write_src_native"]
 
-_LIB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_libecio.so")
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native", "ecio.cpp")
 _lib = None
 _tried = False
-
-
-def _build() -> bool:
-    if not os.path.exists(_SRC):
-        return False
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
-             "-o", _LIB_PATH, _SRC],
-            check=True, capture_output=True, timeout=120,
-        )
-        return True
-    except Exception:
-        return False
 
 
 def get_lib():
@@ -42,11 +26,8 @@ def get_lib():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH) and not _build():
-        return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+    lib = load("ecio.cpp", os.path.dirname(os.path.abspath(__file__)), "ecio")
+    if lib is None:
         return None
     lib.ec3d_write_field.restype = ctypes.c_int
     lib.ec3d_write_field.argtypes = [

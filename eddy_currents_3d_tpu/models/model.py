@@ -1,6 +1,6 @@
 """Model: the device-independent description of a simulation case.
 
-This is the TPU build's equivalent of the reference's global model state
+This is this build's equivalent of the reference's global model state
 (``m_vxc2data.f90`` module + the outputs of ``vxc2data``): voxel geometry,
 per-domain material coefficients, source/motion functions, and solver/
 transient configuration.  It is deliberately a *host-side* object (numpy +
@@ -12,8 +12,8 @@ Array convention
 All 3-D grids are C-ordered ``(nz, ny, nx)`` — x fastest — so that
 ``arr.ravel()[n]`` corresponds to the reference's 1-based cell number
 ``nn = n + 1`` with ``nn = i + sdx*(j-1) + sdx*sdy*(k-1)``
-(EC3D.f90:506-524).  The x axis maps to the TPU lane dimension and z is the
-natural slab axis for multi-chip sharding.
+(EC3D.f90:506-524).  The x axis is the contiguous (fastest) dimension and z
+is the natural slab axis for multi-device sharding.
 """
 
 from __future__ import annotations

@@ -1,22 +1,21 @@
 """ctypes bindings to the native sparse-numerics engine (native/ecsparse.cpp).
 
-Same pattern as io/native.py: shared library next to this module, one-shot
-auto-build with g++ if missing, graceful ``None`` when unavailable so callers
-fall back to the (slow, identical-result) numpy paths."""
+Same pattern as io/native.py: shared library next to this module, named
+after its source's hash and built with g++ on first use, graceful
+``None`` when unavailable so callers fall back to the (slow,
+identical-result) numpy paths."""
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 
 import numpy as np
 
+from ..utils.native_build import load
+
 __all__ = ["get_lib", "ilu0_native", "ilu0_solve_native"]
 
-_LIB_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_libecsparse.so")
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native", "ecsparse.cpp")
 _lib = None
 _tried = False
 
@@ -25,30 +24,13 @@ _i32p = ctypes.POINTER(ctypes.c_int32)
 _f64p = ctypes.POINTER(ctypes.c_double)
 
 
-def _build() -> bool:
-    if not os.path.exists(_SRC):
-        return False
-    try:
-        subprocess.run(
-            ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", "-pthread",
-             "-o", _LIB_PATH, _SRC],
-            check=True, capture_output=True, timeout=120,
-        )
-        return True
-    except Exception:
-        return False
-
-
 def get_lib():
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH) and not _build():
-        return None
-    try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+    lib = load("ecsparse.cpp", os.path.dirname(os.path.abspath(__file__)), "ecsparse")
+    if lib is None:
         return None
     lib.ec3d_ilu0.restype = ctypes.c_int64
     lib.ec3d_ilu0.argtypes = [ctypes.c_int64, _i64p, _i32p, _f64p]

@@ -1,17 +1,16 @@
 """General sparse containers (CSR / COO / ELL) with device SpMV.
 
 The simulation hot path uses the structured stencil operator
-(assembly/stencil.py) — gather-free and TPU-friendly.  This module is the
+(assembly/stencil.py) — gather-free streaming work.  This module is the
 *general* sparse tier the framework also provides: unstructured matrices
 for interop, tests, and irregular couplings, stored as pytrees with jittable
 SpMV.  The CSR product reproduces the semantics of the reference kernel
 ``sprsAx`` (solvers.f90:54-61).
 
-On TPU, ELL (padded fixed-width rows) is the preferred general layout: the
-gather of ``x[col]`` is the unavoidable cost, but values/columns stream
-densely.  CSR SpMV is expressed as a segment-sum over the COO expansion,
-which XLA lowers to scatter-adds — fine on CPU, slower on TPU; use ELL
-there.
+On an accelerator, ELL (padded fixed-width rows) is the preferred general
+layout: the gather of ``x[col]`` is the unavoidable cost, but
+values/columns stream densely.  CSR SpMV is expressed as a segment-sum over
+the COO expansion, which XLA lowers to scatter-adds.
 """
 
 from __future__ import annotations
@@ -149,11 +148,11 @@ jax.tree_util.register_dataclass(
 class BSRMatrix:
     """Block sparse row with padded fixed-width block rows ("block-ELL").
 
-    TPU-native block-sparse layout: each logical row of ``width`` slots
-    holds dense (R, C) blocks, so SpMV/SpMM are batched dense matmuls that
-    tile straight onto the MXU — the sparse structure only drives *which*
-    x-block each slot reads.  Padding slots carry ``block_cols == 0`` and an
-    all-zero block (in range, numerically inert).
+    Block-sparse layout: each logical row of ``width`` slots holds dense
+    (R, C) blocks, so SpMV/SpMM are batched dense matmuls — the sparse
+    structure only drives *which* x-block each slot reads.  Padding slots
+    carry ``block_cols == 0`` and an all-zero block (in range, numerically
+    inert).
 
     * ``block_cols``: (nbr, width) int32 block-column index per slot
     * ``blocks``:     (nbr, width, R, C) dense block values
@@ -178,13 +177,16 @@ class BSRMatrix:
 
     def matmat(self, x: jax.Array) -> jax.Array:
         """``A @ X`` for dense ``X`` (n, k): gather x-blocks per slot, then a
-        batched (R, C) x (C, k) contraction — MXU work, not scatter work."""
+        batched (R, C) x (C, k) contraction — matrix-unit work, not scatter
+        work."""
         nbr, w, R, C = self.blocks.shape
         xb = x.reshape(-1, C, x.shape[1])           # (nbc, C, k)
         gx = xb[self.block_cols]                     # (nbr, w, C, k)
-        # contract C; batch over (nbr, w); sum slots
+        # contract C; batch over (nbr, w); sum slots.  HIGHEST keeps a
+        # float32 product out of TF32, which would change the results
         y = jnp.einsum("rwij,rwjk->rik", self.blocks, gx,
-                       preferred_element_type=self.blocks.dtype)
+                       preferred_element_type=self.blocks.dtype,
+                       precision=jax.lax.Precision.HIGHEST)
         return y.reshape(nbr * R, x.shape[1])
 
     def todense(self) -> jax.Array:
@@ -231,7 +233,7 @@ def bsr_from_scipy(m, block_shape=(8, 8), dtype=jnp.float32) -> BSRMatrix:
 # ---------------------------------------------------------------------------
 # SpGEMM: C = A @ B for CSR A, B.
 #
-# TPU-native two-phase design: the *symbolic* phase (output structure and the
+# Two-phase design: the *symbolic* phase (output structure and the
 # multiset of scalar products feeding each output entry) runs on host once —
 # it is pure integer bookkeeping with data-dependent shapes, which XLA cannot
 # express; the *numeric* phase is a jittable static-shape gather +

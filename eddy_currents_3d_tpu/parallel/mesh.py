@@ -4,12 +4,12 @@ The voxel grid is decomposed into z-slabs (and optionally y-columns) over a
 ``jax.sharding.Mesh``; every field and coefficient array is placed with a
 ``NamedSharding`` whose last three dims map to (z, y, x-replicated).  Under
 ``jit`` the XLA SPMD partitioner then turns the stencil shifts along
-sharded axes into halo collective-permutes over ICI and the solver's dot
+sharded axes into halo collective-permutes and the solver's dot
 products into fused psum all-reduces — the reference has no distribution
 at all (single-threaded Fortran), so this layer is pure new capability.
 
-x stays unsharded: it is the minor (lane) dimension and halo exchange along
-lanes would be pathological.
+x stays unsharded: it is the contiguous minor dimension, and halo exchange
+along it would move strided single elements.
 """
 
 from __future__ import annotations

@@ -1,58 +1,41 @@
-"""Explicit multi-chip execution tier: `shard_map` + halo `ppermute` + per-shard
-fused kernels.
+"""Explicit multi-device execution tier: `shard_map` + halo `ppermute`.
 
 The GSPMD tier (parallel/mesh.py) lets the XLA partitioner slice the
 flat-roll matvec; correct, but the partitioner must materialize whole-array
-rotations as halo traffic it cannot overlap, and the fused Pallas kernels
-cannot run under it.  This module is the hand-scheduled tier the reference
-has no analog of (it is single-threaded Fortran, SURVEY §2 "no parallelism
-of any kind"): the voxel grid is decomposed into z-slabs — and optionally
-y-columns, giving a full (z, y) 2-D decomposition for pod-scale meshes on
-the reference's thin-z grids (TEAM7 is 102x102x24) — over a device mesh.
-Each device holds its block of every coefficient and state field, and one
-matvec is
+rotations as halo traffic it cannot overlap.  This module is the
+hand-scheduled tier the reference has no analog of (it is single-threaded
+Fortran, SURVEY §2 "no parallelism of any kind"): the voxel grid is
+decomposed into z-slabs — and optionally y-columns, giving a full (z, y)
+2-D decomposition for the reference's thin-z grids (TEAM7 is 102x102x24) —
+over a device mesh.  Each device holds its block of every coefficient and
+state field, and one matvec is
 
   1. ``ppermute`` the ±1 ghost A-planes and the ±2 ghost U-planes (box
-     window only) to the z- and y-neighbors over ICI — started first so
-     XLA's async collectives overlap them with the bulk compute;
-  2. the single-device fused kernels (Pallas on TPU, shifted-multiply-add
-     jnp on CPU) on the local block — the interior work, independent of the
-     halos;
-  3. cheap per-plane corrections folding the received ghost planes into the
+     window only) to the z- and y-neighbors — started first so XLA's
+     async collectives overlap them with the bulk compute;
+  2. the shifted-multiply-add stencil on the local block with zero-filled
+     shifts — the interior work, independent of the halos;
+  3. cheap per-plane corrections adding the received ghost planes into the
      boundary planes of the local result.
 
-Step 3 takes two forms.  Along z, the Pallas kernels use *clamped*
-neighbor-plane index maps (ops/pallas_stencil.py): at a true grid face the
-duplicated plane is killed by a zero coefficient, but at an interior shard
-face the coefficient is live, so the correction subtracts the clamped
-duplicate and adds the ghost plane: ``y[0] += ka_-z[0] * (ghost - a[0])``.
-Along y the kernels stitch rows from *internal tiles* whose height is a
-kernel-private choice, so "what duplicate did the kernel use" is not
-observable from here; instead every coefficient slot that crosses an
+Along z the ghost terms are pure adds: the zero-filled local shift left
+nothing at a shard face.  Along y every coefficient slot that crosses an
 internal y shard face is **zeroed at construction** (the saved rows ride
-along as small per-shard face arrays) — the kernel then treats shard faces
-exactly like true grid faces, and the corrections are pure ghost adds,
-identical for both backends and independent of kernel tiling.
+along as small per-shard face arrays), so the local stencil treats shard
+faces exactly like true grid faces and the corrections are again pure
+ghost adds.
 
-Layout: fields live in the same lane/sublane-padded space as the
-single-chip Pallas tier, with z padded to a multiple of the mesh's z extent
-and y to ``n_y`` sublane-aligned blocks (padded planes carry zero
-coefficients and so stay identically zero through BiCGSTAB).  The
-U-coupling fields keep the conductor-box x window; they span the full
-padded z — and, on y-decomposed meshes, the full padded y — since per-shard
-windows would give ragged shard shapes; only gu/ku/da pay the inflation and
-they are the minor coefficient streams.
+Layout: z is padded to a multiple of the mesh's z extent (at least two
+planes per shard, for the ±2 U halos) and y to ``n_y`` equal blocks;
+padded planes carry zero coefficients and so stay identically zero through
+BiCGSTAB.  The U-coupling fields keep the conductor-box (y, x) window —
+the x window only on y-decomposed meshes — and span the full padded z,
+since per-shard windows would give ragged shard shapes; only gu/ku/da pay
+the inflation and they are the minor coefficient streams.
 
 Solver dots/axpys run *outside* the shard_map at the GSPMD level, where an
 elementwise op on sharded operands partitions trivially and a reduction
 lowers to one fused psum all-reduce (solvers/bicgstab.py needs no changes).
-
-On z-only meshes with the Pallas path, the per-shard kernels are the
-case-coded fused kernels (``use_coded=True``, round-5): each shard holds
-one int32 code field + one C field instead of the 38 coefficient streams,
-and shard-face corrections restore the global semantics (see
-:meth:`_init_coded`).  Y-decomposed meshes keep the per-shard field
-kernels (coded face masks need global == local rows).
 
 Reference semantics being distributed: the CSR SpMV of solvers.f90:54-61
 over the [Ax|Ay|Az|U] operator of EC3D.f90:465-1049.
@@ -71,13 +54,6 @@ from ..assembly.stencil import OFFSETS7, State, shift
 
 __all__ = ["ShardedStencilOperator"]
 
-_LANE = 128
-_SUB = 8
-
-
-def _pad_to(n: int, m: int) -> int:
-    return ((n + m - 1) // m) * m
-
 
 def _pad_zyx(arr: np.ndarray, NZp: int, NYp: int, NXp: int) -> np.ndarray:
     pad = [(0, 0)] * (arr.ndim - 3) + [
@@ -86,57 +62,52 @@ def _pad_zyx(arr: np.ndarray, NZp: int, NYp: int, NXp: int) -> np.ndarray:
     return np.pad(arr, pad)
 
 
+@jax.tree_util.register_pytree_node_class
 class ShardedStencilOperator:
     """(z, y)-sharded stencil operator with explicit halo exchange.
 
-    Construct with ``use_pallas=True`` on TPU meshes (per-shard fused
-    kernels) or ``False`` for the jnp shifted-multiply-add backend (CPU
-    meshes, f64 validation runs).
-    """
+    A pytree whose leaves are the sharded coefficient arrays, so a jitted
+    step takes them as arguments: arrays a jitted function closes over are
+    lowered as constants, which at 256x256x64 puts gigabytes of
+    coefficients into the executable."""
+
+    _LEAVES = ("ka_p", "gu_p", "ku_p", "da_p", "_ka3f", "_ka4f",
+               "_gm", "_gp", "_km", "_kp", "_dm", "_dp")
+
+    def tree_flatten(self):
+        names = tuple(n for n in self._LEAVES
+                      if getattr(self, n, None) is not None)
+        return tuple(getattr(self, n) for n in names), (self, names)
+
+    @classmethod
+    def tree_unflatten(cls, aux, leaves):
+        # the aux part is the operator itself (compared by identity): its
+        # static fields and the shard_map'd bodies, which read only those
+        base, names = aux
+        new = object.__new__(cls)
+        new.__dict__.update(base.__dict__)
+        new.__dict__.update(zip(names, leaves))
+        return new
 
     def __init__(self, system, mesh: Mesh, dtype=jnp.float32,
-                 use_pallas: bool = False, interpret: bool = False,
-                 coeff_dtype=None, model=None, use_coded: bool = False):
+                 coeff_dtype=None):
         self.mesh = mesh
         self.n_z = int(mesh.shape["z"])
         self.n_y = int(mesh.shape.get("y", 1))
         self.dtype = dtype
         self.coeff_dtype = coeff_dtype or dtype
-        self.use_pallas = use_pallas
-        self.interpret = interpret
-        self.use_coded = bool(use_coded)
 
         op = system.op
         nz, ny, nx = op.shape_zyx
         self.shape_zyx = (nz, ny, nx)
-        # mirror ops/pallas_stencil.from_assembled: 2-byte operands (bf16
-        # coefficient streams) need sublane-16 tiling; the state shares the
-        # padded layout so it pads to 16 as well
-        sub = 16 if (jnp.dtype(self.coeff_dtype).itemsize == 2
-                     or jnp.dtype(dtype).itemsize == 2) else _SUB
-        self._sub = sub
-        NXp = _pad_to(nx, _LANE)
-        # each y shard is a sublane-aligned block; trailing pad only
-        NYl = _pad_to(-(-ny // self.n_y), sub)
+        # even splits only; each shard needs >= 2 local planes (z) and rows
+        # (y) for the ±2 U halos to stay nearest-neighbor
+        NYl = max(2, -(-ny // self.n_y))
         NYp = self.n_y * NYl
         self._NYl = NYl
-        # each shard needs >= 2 local planes for the ±2 U halos to stay
-        # nearest-neighbor
         NZp = self.n_z * max(2, -(-nz // self.n_z))
+        NXp = nx
         self.padded_zyx = (NZp, NYp, NXp)
-
-        if self.use_coded:
-            # case-coded per-shard kernels (VERDICT r4 #2): requires a
-            # z-only decomposition (coded face masks use global rows,
-            # which equal local rows only when y is undecomposed)
-            if self.n_y != 1:
-                from ..ops.pallas_coded import CodedUnsupported
-                raise CodedUnsupported(
-                    "coded shard tier supports z-decomposed meshes only")
-            if model is None:
-                raise ValueError("use_coded=True requires model=")
-            self._init_coded(system, model, mesh)
-            return
 
         cd = self.coeff_dtype
         gspec = lambda ndim: NamedSharding(
@@ -152,40 +123,29 @@ class ShardedStencilOperator:
             self.gu_p = self.ku_p = self.da_p = None
         elif self.n_y == 1:
             # (y, x) conductor-box window (halo already included by
-            # assemble_operator), full padded z extent.  Shift the window
-            # origin back when lane/sublane padding would overrun the grid —
-            # the extra low-side cells carry zero coefficients.
+            # assemble_operator), full padded z extent
             _, _, y0, y1, x0, x1 = op.box
-            by, bx = y1 - y0, x1 - x0
-            BYp, BXp = _pad_to(by, sub), _pad_to(bx, _LANE)
-            y0n, x0n = min(y0, NYp - BYp), min(x0, NXp - BXp)
-            ly, lx = y0 - y0n, x0 - x0n
 
             def window(full: np.ndarray) -> np.ndarray:
                 win = full[..., :, y0:y1, x0:x1]
-                pad = [(0, 0)] * (full.ndim - 3) + [
-                    (0, NZp - nz), (ly, BYp - by - ly), (lx, BXp - bx - lx)]
+                pad = [(0, 0)] * (full.ndim - 3) + [(0, NZp - nz), (0, 0), (0, 0)]
                 return np.pad(win, pad)
 
-            self.box = (y0n, y0n + BYp, x0n, x0n + BXp)
+            self.box = (y0, y1, x0, x1)
             gu_h = window(np.asarray(system.np_gu, np.float64))
             ku_h = window(np.asarray(system.np_ku, np.float64))
             da_h = window(np.asarray(system.np_da, np.float64))
         else:
             # y-decomposed mesh: x window only; full padded (z, y) extents
             _, _, _, _, x0, x1 = op.box
-            bx = x1 - x0
-            BXp = _pad_to(bx, _LANE)
-            x0n = min(x0, NXp - BXp)
-            lx = x0 - x0n
 
             def window(full: np.ndarray) -> np.ndarray:
                 win = full[..., :, :, x0:x1]
                 pad = [(0, 0)] * (full.ndim - 3) + [
-                    (0, NZp - nz), (0, NYp - ny), (lx, BXp - bx - lx)]
+                    (0, NZp - nz), (0, NYp - ny), (0, 0)]
                 return np.pad(win, pad)
 
-            self.box = (0, NYp, x0n, x0n + BXp)
+            self.box = (0, NYp, x0, x1)
             gu_h = window(np.asarray(system.np_gu, np.float64))
             ku_h = window(np.asarray(system.np_ku, np.float64))
             da_h = window(np.asarray(system.np_da, np.float64))
@@ -236,9 +196,7 @@ class ShardedStencilOperator:
         spec_c5 = P(None, None, "z", "y", None)
         spec_f = P("y", "z", None)       # (n_y, NZp, ...) face arrays
         spec_f3 = P("y", None, "z", None)
-        # check_vma=False: pallas_call inside shard_map would otherwise
-        # require varying-mesh-axis annotations on every out_shape
-        smap = partial(jax.shard_map, mesh=mesh, check_vma=False)
+        smap = partial(jax.shard_map, mesh=mesh)
         if self.box is None:
             extra = (spec_f, spec_f) if self.n_y > 1 else ()
             self._apply_sm = smap(
@@ -259,238 +217,8 @@ class ShardedStencilOperator:
                 in_specs=(spec_c5, spec_a) + dextra,
                 out_specs=spec_u)
 
-    # ------------------------------------------------------------------
-    # coded tier: per-shard case-coded fused kernels (ops/pallas_coded.py)
-    # ------------------------------------------------------------------
-    def _init_coded(self, system, model, mesh: Mesh):
-        """One int32 code field + one C field (+conv) per shard instead of
-        the 38 coefficient streams; the local fused kernel computes every
-        coefficient in-register.  Because coefficients are *computed* from
-        local plane indices rather than streamed, the kernel mis-classifies
-        shard-internal z boundaries as grid faces — the mismatch is exactly
-        correctable from host-precomputed data:
-
-        * the closed-form A-stencil z terms differ from truth by per-plane
-          *scalars* (kernel-local vs global face classification), applied
-          as at-most-two-plane axpy fixes (``nz % NZl == 0``) or a fused
-          per-plane broadcast otherwise;
-        * the U-ladder/grad-U/div z terms at shard faces were value-zeroed
-          by the kernel's local guards, so adding (true global coefficient
-          plane) × (ghost plane) restores them — the coefficient planes
-          come from the assembled np_gu/np_ku/np_da, which the coded
-          encoder has already proven bit-equal to its decode;
-        * z-padding planes (NZp > nz) get nonzero closed-form A output and
-          are re-zeroed by a global-plane-index mask, preserving the
-          padded-cells-stay-zero BiCGSTAB invariant.
-        """
-        from ..ops import pallas_coded as pc
-
-        nz, ny, nx = self.shape_zyx
-        NZp, NYp, NXp = self.padded_zyx
-        NZl = NZp // self.n_z
-        self._NZl = NZl
-        coded1 = pc.from_assembled_coded(system, model)   # encode + proof
-        assert coded1.padded_yx == (NYp, NXp)
-        self._coded_meta = (coded1.consts, coded1.inertia_on_faces,
-                            coded1.has_conv)
-        zpad = [(0, NZp - nz), (0, 0), (0, 0)]
-        spec_u = NamedSharding(mesh, P("z", "y", None))
-        spec_a = NamedSharding(mesh, P(None, "z", "y", None))
-        self.code_p = jax.device_put(
-            jnp.asarray(np.pad(np.asarray(coded1.code_p), zpad)), spec_u)
-        self.cf_p = jax.device_put(
-            jnp.asarray(np.pad(np.asarray(coded1.cf_p), zpad)), spec_u)
-        self.conv_p = (jax.device_put(
-            jnp.asarray(np.pad(np.asarray(coded1.conv_p), [(0, 0)] + zpad)),
-            spec_a) if coded1.has_conv else None)
-        self.box = op_box = system.op.box   # kept for introspection only
-
-        # ---- per-plane scalar deltas of the closed-form A z-stencil ----
-        s, _, _, _, BND = coded1.consts
-        sz = s[2]
-        t_czm = lambda g: 0.0 if g == 0 else (
-            BND[2][0] * sz if g == nz - 1 else -sz)
-        t_czp = lambda g: 0.0 if g == nz - 1 else (
-            BND[2][1] * sz if g == 0 else -sz)
-        t_dg = lambda g: sz if g in (0, nz - 1) else 2.0 * sz
-        k_czm = lambda z: 0.0 if z == 0 else (
-            BND[2][0] * sz if z == NZl - 1 else -sz)
-        k_czp = lambda z: 0.0 if z == NZl - 1 else (
-            BND[2][1] * sz if z == 0 else -sz)
-        k_dg = lambda z: sz if z in (0, NZl - 1) else 2.0 * sz
-        dczm = np.zeros((self.n_z, NZl))
-        dczp = np.zeros((self.n_z, NZl))
-        ddg = np.zeros((self.n_z, NZl))
-        czm0 = np.zeros(self.n_z)
-        czpl = np.zeros(self.n_z)
-        for k in range(self.n_z):
-            for zl in range(NZl):
-                g = k * NZl + zl
-                if g >= nz:
-                    continue          # padding plane: output masked anyway
-                if zl > 0:
-                    dczm[k, zl] = t_czm(g) - k_czm(zl)
-                if zl < NZl - 1:
-                    dczp[k, zl] = t_czp(g) - k_czp(zl)
-                ddg[k, zl] = t_dg(g) - k_dg(zl)
-            if k * NZl < nz:
-                czm0[k] = t_czm(k * NZl)       # ghost-plane coefficient
-            gl = k * NZl + NZl - 1
-            if gl < nz:
-                czpl[k] = t_czp(gl)
-        # static fast path: with nz a multiple of NZl the deltas live only
-        # on the two local face planes (no mid-shard global face), so the
-        # fix is two plane-level axpys instead of a full-field broadcast
-        self._z_deltas_face_only = (nz % NZl == 0)
-        zvec = NamedSharding(mesh, P("z", None))
-        zsc = NamedSharding(mesh, P("z"))
-        dt_ = self.dtype
-        self._dczm = jax.device_put(jnp.asarray(dczm, dt_), zvec)
-        self._dczp = jax.device_put(jnp.asarray(dczp, dt_), zvec)
-        self._ddg = jax.device_put(jnp.asarray(ddg, dt_), zvec)
-        self._czm0 = jax.device_put(jnp.asarray(czm0, dt_), zsc)
-        self._czpl = jax.device_put(jnp.asarray(czpl, dt_), zsc)
-
-        # ---- true U-ladder coefficient planes at the shard faces ----
-        gu = np.asarray(system.np_gu)
-        ku = np.asarray(system.np_ku)
-        da = np.asarray(system.np_da)
-
-        def pad_yx(a):
-            return np.pad(a, [(0, NYp - ny), (0, NXp - nx)])
-
-        def plane(field, g):
-            if g < 0 or g >= nz:
-                return np.zeros((NYp, NXp))
-            return pad_yx(field[g])
-
-        g0 = [k * NZl for k in range(self.n_z)]
-        g1 = [k * NZl + NZl - 1 for k in range(self.n_z)]
-        stackp = lambda field, gs: np.stack([plane(field, g) for g in gs])
-        faces = {
-            "g_m1": stackp(gu[2, 1], g0),
-            "g_m2a": stackp(gu[2, 0], g0),
-            "g_m2b": stackp(gu[2, 0], [g + 1 for g in g0]),
-            "g_p1": stackp(gu[2, 3], g1),
-            "g_p2a": stackp(gu[2, 4], g1),
-            "g_p2b": stackp(gu[2, 4], [g - 1 for g in g1]),
-            "k_m": stackp(ku[5], g0),
-            "k_p": stackp(ku[6], g1),
-            "d_m": stackp(da[2, 0], g0),
-            "d_p": stackp(da[2, 2], g1),
-        }
-        zpl = NamedSharding(mesh, P("z", None, None))
-        self._cface = {k: jax.device_put(jnp.asarray(v, dt_), zpl)
-                       for k, v in faces.items()}
-
-        # Jacobi diagonal, host-built (no full coefficient streams exist
-        # on device in this tier)
-        ka0 = np.pad(np.asarray(system.np_ka[0]),
-                     [(0, NZp - nz), (0, NYp - ny), (0, NXp - nx)])
-        ku0 = np.pad(ku[0], [(0, NZp - nz), (0, NYp - ny), (0, NXp - nx)])
-        dA = np.broadcast_to(np.where(ka0 == 0, 1.0, ka0), (3,) + ka0.shape)
-        dU = np.where(ku0 == 0, 1.0, ku0)
-        self._diag = State(
-            jax.device_put(jnp.asarray(dA, dt_), spec_a),
-            jax.device_put(jnp.asarray(dU, dt_), spec_u))
-
-        spec_a_s = P(None, "z", "y", None)
-        spec_u_s = P("z", "y", None)
-        spec_c = P(None, "z", "y", None)
-        spec_zv = P("z", None)
-        spec_zs = P("z")
-        spec_zp = P("z", None, None)
-        smap = partial(jax.shard_map, mesh=mesh, check_vma=False)
-        face_specs = tuple([spec_zp] * len(self._cface))
-        self._cface_keys = tuple(sorted(self._cface))
-        conv_specs = (spec_c,) if self.conv_p is not None else ()
-        self._apply_sm = smap(
-            self._local_apply_coded,
-            in_specs=(spec_u_s, spec_u_s) + conv_specs
-            + (spec_zv, spec_zv, spec_zv, spec_zs, spec_zs)
-            + face_specs + (spec_a_s, spec_u_s),
-            out_specs=(spec_a_s, spec_u_s))
-
-    def _coded_args(self, A, U):
-        conv = (self.conv_p,) if self.conv_p is not None else ()
-        faces = tuple(self._cface[k] for k in self._cface_keys)
-        return ((self.code_p, self.cf_p) + conv
-                + (self._dczm, self._dczp, self._ddg, self._czm0,
-                   self._czpl) + faces + (A, U))
-
-    def _local_apply_coded(self, code, cf, *rest):
-        from ..ops import pallas_coded as pc
-        from ..ops import pallas_stencil as ps
-
-        consts, iof, has_conv = self._coded_meta
-        if has_conv:
-            conv, rest = rest[0], rest[1:]
-        else:
-            conv = None
-        (dczm, dczp, ddg, czm0, czpl), rest = rest[:5], rest[5:]
-        nf = len(self._cface_keys)
-        f = dict(zip(self._cface_keys, (r[0] for r in rest[:nf])))
-        A, U = rest[nf:]
-        nz, ny, nx = self.shape_zyx
-        NZl = self._NZl
-        dt_ = A.dtype
-
-        up, dn = self._zperms()
-        # halos first so the async permutes overlap the bulk kernel
-        a_lo = jax.lax.ppermute(A[:, -1], "z", up)
-        a_hi = jax.lax.ppermute(A[:, 0], "z", dn)
-        u_lo = jax.lax.ppermute(U[-2:], "z", up)    # [z-2, z-1]
-        u_hi = jax.lax.ppermute(U[:2], "z", dn)     # [z+1, z+2]
-
-        local = pc.CodedStencilOperator(
-            code_p=code, cf_p=cf,
-            conv_p=(conv if has_conv
-                    else jnp.zeros((3, 0, 0, 0), dt_)),
-            shape_zyx=(NZl, ny, nx), padded_yx=A.shape[2:],
-            cond_z=(0, NZl), consts=consts,
-            inertia_on_faces=iof, has_conv=has_conv)
-        prev = ps.INTERPRET
-        ps.INTERPRET = self.interpret or prev
-        try:
-            yA, yU = pc._apply_fused(local, A, U)
-        finally:
-            ps.INTERPRET = prev
-
-        # ---- A-stencil z-coefficient deltas (see _init_coded) ----
-        dczm, dczp, ddg = dczm[0], dczp[0], ddg[0]
-        if self._z_deltas_face_only:
-            yA = yA.at[:, 0].add(ddg[0] * A[:, 0] + dczp[0] * A[:, 1]
-                                 + czm0[0] * a_lo)
-            yA = yA.at[:, -1].add(ddg[-1] * A[:, -1] + dczm[-1] * A[:, -2]
-                                  + czpl[0] * a_hi)
-        else:
-            yA = yA + ddg[None, :, None, None] * A
-            yA = yA.at[:, 1:].add(dczm[1:, None, None] * A[:, :-1])
-            yA = yA.at[:, :-1].add(dczp[:-1, None, None] * A[:, 1:])
-            yA = yA.at[:, 0].add(czm0[0] * a_lo)
-            yA = yA.at[:, -1].add(czpl[0] * a_hi)
-
-        # ---- U-ladder ghost adds (kernel value-guarded local faces) ----
-        yA = yA.at[2, 0].add(f["g_m1"] * u_lo[1] + f["g_m2a"] * u_lo[0])
-        yA = yA.at[2, 1].add(f["g_m2b"] * u_lo[1])
-        yA = yA.at[2, -1].add(f["g_p1"] * u_hi[0] + f["g_p2a"] * u_hi[1])
-        yA = yA.at[2, -2].add(f["g_p2b"] * u_hi[0])
-        yU = yU.at[0].add(f["k_m"] * u_lo[1] + f["d_m"] * a_lo[2])
-        yU = yU.at[-1].add(f["k_p"] * u_hi[0] + f["d_p"] * a_hi[2])
-        if has_conv:
-            yA = yA.at[:, 0].add(-conv[2, 0][None] * a_lo)
-            yA = yA.at[:, -1].add(conv[2, -1][None] * a_hi)
-
-        # ---- re-zero the z-padding planes (computed, not streamed) ----
-        idx = jax.lax.axis_index("z")
-        zval = ((idx * NZl + jnp.arange(NZl)) < nz).astype(dt_)
-        yA = yA * zval[None, :, None, None]
-        yU = yU * zval[:, None, None]
-        return yA, yU
-
-    # -- state padding (same invariant as the single-chip Pallas tier:
-    #    padded cells have zero coefficients, so they stay zero through
-    #    BiCGSTAB and padding costs one pad/unpad per solve) --
+    # -- state padding: padded cells have zero coefficients, so they stay
+    #    zero through BiCGSTAB and padding costs one pad/unpad per solve --
     def pad_state(self, x: State) -> State:
         nz, ny, nx = self.shape_zyx
         NZp, NYp, NXp = self.padded_zyx
@@ -504,9 +232,6 @@ class ShardedStencilOperator:
     # ------------------------------------------------------------------
     def apply(self, x: State) -> State:
         """y = A @ x on padded, (z, y)-sharded fields."""
-        if self.use_coded:
-            yA, yU = self._apply_sm(*self._coded_args(x.A, x.U))
-            return State(yA, yU)
         if self.box is None:
             args = (self.ka_p, x.A)
             if self.n_y > 1:
@@ -524,16 +249,6 @@ class ShardedStencilOperator:
         """U-row div(dA/dt) contraction on the *unpadded* grid A — the
         per-step RHS term (EC3D.f90:385-392)."""
         nz, ny, nx = self.shape_zyx
-        if self.use_coded:
-            # the fused kernel with U = 0 emits exactly the da contraction
-            # in its U output (once per timestep; see the single-chip
-            # CodedStencilOperator.apply_div)
-            NZp, NYp, NXp = self.padded_zyx
-            A_p = jnp.pad(A, [(0, 0), (0, NZp - nz), (0, NYp - ny),
-                              (0, NXp - nx)])
-            U0 = jnp.zeros((NZp, NYp, NXp), A.dtype)
-            _, yU = self._apply_sm(*self._coded_args(A_p, U0))
-            return yU[:nz, :ny, :nx]
         if self.box is None:
             return jnp.zeros(A.shape[1:], A.dtype)
         NZp, NYp, NXp = self.padded_zyx
@@ -611,55 +326,35 @@ class ShardedStencilOperator:
         ab_lo = a_lo[:, y0:y1, x0:x1]
         ab_hi = a_hi[:, y0:y1, x0:x1]
 
-        if self.use_pallas:
-            from ..ops import pallas_stencil as ps
-            prev = ps.INTERPRET
-            ps.INTERPRET = self.interpret or prev
-            try:
-                gout, uout = ps._apply_u(gu, ku, da, Ub, Ab)
-            finally:
-                ps.INTERPRET = prev
-            # clamped-plane corrections along z (see module docstring)
-            gout = gout.at[2, 0].add(gu[2, 1, 0] * (u_lo[1] - Ub[0])
-                                     + gu[2, 0, 0] * (u_lo[0] - Ub[0]))
-            gout = gout.at[2, 1].add(gu[2, 0, 1] * (u_lo[1] - Ub[0]))
-            gout = gout.at[2, -1].add(gu[2, 3, -1] * (u_hi[0] - Ub[-1])
-                                      + gu[2, 4, -1] * (u_hi[1] - Ub[-1]))
-            gout = gout.at[2, -2].add(gu[2, 4, -2] * (u_hi[0] - Ub[-1]))
-            uout = uout.at[0].add(ku[5, 0] * (u_lo[1] - Ub[0])
-                                  + da[2, 0, 0] * (ab_lo[2] - Ab[2, 0]))
-            uout = uout.at[-1].add(ku[6, -1] * (u_hi[0] - Ub[-1])
-                                   + da[2, 2, -1] * (ab_hi[2] - Ab[2, -1]))
-        else:
-            # jnp backend: zero-fill shifts, ghost contributions are adds
-            gt = []
-            for c in range(3):
-                t = gu[c, 2] * Ub
-                for k, d in ((0, -2), (1, -1), (3, +1), (4, +2)):
-                    t = t + gu[c, k] * shift(Ub, c, d)
-                gt.append(t)
-            gz = gt[2]
-            gz = gz.at[0].add(gu[2, 1, 0] * u_lo[1] + gu[2, 0, 0] * u_lo[0])
-            gz = gz.at[1].add(gu[2, 0, 1] * u_lo[1])
-            gz = gz.at[-1].add(gu[2, 3, -1] * u_hi[0] + gu[2, 4, -1] * u_hi[1])
-            gz = gz.at[-2].add(gu[2, 4, -2] * u_hi[0])
-            gt[2] = gz
-            gout = jnp.stack(gt)
+        # zero-fill shifts, ghost contributions are adds
+        gt = []
+        for c in range(3):
+            t = gu[c, 2] * Ub
+            for k, d in ((0, -2), (1, -1), (3, +1), (4, +2)):
+                t = t + gu[c, k] * shift(Ub, c, d)
+            gt.append(t)
+        gz = gt[2]
+        gz = gz.at[0].add(gu[2, 1, 0] * u_lo[1] + gu[2, 0, 0] * u_lo[0])
+        gz = gz.at[1].add(gu[2, 0, 1] * u_lo[1])
+        gz = gz.at[-1].add(gu[2, 3, -1] * u_hi[0] + gu[2, 4, -1] * u_hi[1])
+        gz = gz.at[-2].add(gu[2, 4, -2] * u_hi[0])
+        gt[2] = gz
+        gout = jnp.stack(gt)
 
-            uout = ku[0] * Ub
-            for o, (axis, d) in enumerate(OFFSETS7):
-                if o:
-                    uout = uout + ku[o] * shift(Ub, axis, d)
-            for c in range(3):
-                uout = (uout + da[c, 1] * Ab[c]
-                        + da[c, 0] * shift(Ab[c], c, -1)
-                        + da[c, 2] * shift(Ab[c], c, +1))
-            uout = uout.at[0].add(ku[5, 0] * u_lo[1] + da[2, 0, 0] * ab_lo[2])
-            uout = uout.at[-1].add(ku[6, -1] * u_hi[0] + da[2, 2, -1] * ab_hi[2])
+        uout = ku[0] * Ub
+        for o, (axis, d) in enumerate(OFFSETS7):
+            if o:
+                uout = uout + ku[o] * shift(Ub, axis, d)
+        for c in range(3):
+            uout = (uout + da[c, 1] * Ab[c]
+                    + da[c, 0] * shift(Ab[c], c, -1)
+                    + da[c, 2] * shift(Ab[c], c, +1))
+        uout = uout.at[0].add(ku[5, 0] * u_lo[1] + da[2, 0, 0] * ab_lo[2])
+        uout = uout.at[-1].add(ku[6, -1] * u_hi[0] + da[2, 2, -1] * ab_hi[2])
 
         if self.n_y > 1:
             # y-face ghost adds (face coefficients zeroed at construction,
-            # so both backends saw zeros there — pure adds, no duplicates)
+            # so the local stencil saw zeros there — pure adds)
             gout = gout.at[1, :, 0, :].add(gm[0, 0] * u_ym[:, 1, :]
                                            + gm[0, 1] * u_ym[:, 0, :])
             gout = gout.at[1, :, 1, :].add(gm[0, 2] * u_ym[:, 1, :])
@@ -677,23 +372,12 @@ class ShardedStencilOperator:
 
     def _a_block(self, ka, A, a_lo, a_hi):
         """Shared 7-point A stencil on the local slab + ghost-plane terms."""
-        if self.use_pallas:
-            from ..ops import pallas_stencil as ps
-            prev = ps.INTERPRET
-            ps.INTERPRET = self.interpret or prev
-            try:
-                yA = ps._apply_a(ka, A)
-            finally:
-                ps.INTERPRET = prev
-            yA = yA.at[:, 0].add(ka[5, 0] * (a_lo - A[:, 0]))
-            yA = yA.at[:, -1].add(ka[6, -1] * (a_hi - A[:, -1]))
-        else:
-            yA = ka[0] * A
-            for o, (axis, d) in enumerate(OFFSETS7):
-                if o:
-                    yA = yA + ka[o] * shift(A, axis, d)
-            yA = yA.at[:, 0].add(ka[5, 0] * a_lo)
-            yA = yA.at[:, -1].add(ka[6, -1] * a_hi)
+        yA = ka[0] * A
+        for o, (axis, d) in enumerate(OFFSETS7):
+            if o:
+                yA = yA + ka[o] * shift(A, axis, d)
+        yA = yA.at[:, 0].add(ka[5, 0] * a_lo)
+        yA = yA.at[:, -1].add(ka[6, -1] * a_hi)
         return yA
 
     def _local_div(self, da, A, dm=None, dp=None):
@@ -725,8 +409,6 @@ class ShardedStencilOperator:
         """Operator diagonal in padded space (1 on padded / non-U cells) —
         for right-Jacobi under the shard tier.  (Face-coefficient surgery
         never touches the diagonal slots.)"""
-        if self.use_coded:
-            return self._diag
         NZp, NYp, NXp = self.padded_zyx
         ka0 = self.ka_p[0].astype(self.dtype)   # state dtype, not coeff dtype
         dA = jnp.broadcast_to(ka0[None], (3, NZp, NYp, NXp))

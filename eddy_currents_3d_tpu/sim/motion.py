@@ -36,7 +36,7 @@ class MotionState(NamedTuple):
     distance: jax.Array    # (numfun, 3) accumulated displacement
     movestop: jax.Array    # (3,) int32 global latch (EC3D.f90:238)
     # Kahan compensation for `distance`: the reference accumulates Distance
-    # in float64 (EC3D.f90:1052-1062); on TPU without x64 the state is f32,
+    # in float64 (EC3D.f90:1052-1062); without x64 the state is f32,
     # where a plain running sum drifts by ~n*ulp over n steps and can
     # mis-round the nint() voxel shift on long transients.  Compensated
     # summation bounds the error to ~1 ulp of each term independent of

@@ -80,7 +80,7 @@ class _Carry(NamedTuple):
     done: jax.Array
 
 
-@partial(jax.jit, static_argnums=(0,), static_argnames=("dot_dtype", "mv_dot"))
+@partial(jax.jit, static_argnums=(0,), static_argnames=("dot_dtype",))
 def bicgstab_wr(
     apply_fn: Callable,
     b,
@@ -88,18 +88,12 @@ def bicgstab_wr(
     tol,
     itmax,
     dot_dtype: Optional[jnp.dtype] = None,
-    mv_dot: Optional[Callable] = None,
 ) -> SolveResult:
     """Solve ``A x = b`` with restarted BiCGSTAB.
 
     ``apply_fn``: the matrix-vector product on the pytree space.
     ``dot_dtype``: accumulate reductions in this dtype (e.g. float64 on CPU
     validation runs); default = operand dtype.
-    ``mv_dot``: optional fused matvec+reductions hook,
-    ``mv_dot(v, w) -> (A v, dot(A v, w), dot(A v, A v))`` — when given,
-    the per-iteration ``ap·r0`` / ``as·s`` / ``as·as`` reductions ride the
-    matvec kernels instead of re-reading the full state (the coded Pallas
-    operator provides this; identical recurrence, reduction order only).
     """
     dot = partial(tree_dot, dtype=dot_dtype)
     nrm = partial(tree_norm, dtype=dot_dtype)
@@ -114,22 +108,15 @@ def bicgstab_wr(
     def body(c: _Carry) -> _Carry:
         it = c.it + 1
         rr0 = c.rr0                       # == dot(c.r, c.r0), carried
-        if mv_dot is None:
-            ap = apply_fn(c.p)
-            ap_r0 = dot(ap, c.r0)
-        else:
-            ap, ap_r0, _ = mv_dot(c.p, c.r0)
+        ap = apply_fn(c.p)
+        ap_r0 = dot(ap, c.r0)
         alpha = rr0 / ap_r0
         s = tree_axpy(-alpha, ap, c.r)
         s_rel = nrm(s) / bnorm
         conv_s = s_rel < tol
 
-        if mv_dot is None:
-            as_ = apply_fn(s)
-            omega = dot(as_, s) / dot(as_, as_)
-        else:
-            as_, as_s, as_as = mv_dot(s, s)
-            omega = as_s / as_as
+        as_ = apply_fn(s)
+        omega = dot(as_, s) / dot(as_, as_)
         # On the half-step exit the reference sets x += alpha*p only
         # (solvers.f90:34-38) and the loop terminates, so r/r0/p are dead
         # after this iteration: gating omega (and below beta) to 0 gives the
@@ -189,7 +176,7 @@ def bicgstab_jacobi(apply_fn, diag, b, x0, tol, itmax,
     """Right-Jacobi-preconditioned BiCGSTABwr: solve ``(A D^-1) y = b`` with
     ``x = D^-1 y`` and warm start ``y0 = D x0`` — the residual history and
     convergence test remain those of the original system.  (The reference
-    runs unpreconditioned, solvers.f90; this is the TPU build's cheapest
+    runs unpreconditioned, solvers.f90; this is the cheapest
     accelerator, also wired into Simulation as ``precond='jacobi'``.)"""
     inv = jax.tree.map(lambda d: 1.0 / d, diag)
     mul = lambda s, v: jax.tree.map(lambda a, b: a * b, s, v)

@@ -12,7 +12,7 @@ are interchangeable with unpreconditioned ones at the same tolerance.
 ``lmax`` comes from the Gershgorin bound of the assembled operator (for the
 dominant 7-point block this is essentially 4*(sx+sy+sz), tight); ``lmin``
 is ``lmax / ratio`` with a default ratio tuned on the reference TEAM7 case
-(order 4, ratio 30: ~3.5x fewer outer iterations, ~2x wall clock on TPU).
+(order 4, ratio 30: ~3.5x fewer outer iterations).
 """
 
 from __future__ import annotations

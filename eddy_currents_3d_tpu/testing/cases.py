@@ -112,7 +112,8 @@ def case_static(shape_xyz=(20, 20, 12), tol=5e-3, steps=4, dt=1e-3,
     return make_vxc_text(shape_xyz, 0.004, names, geo.ravel())
 
 
-def case_moving(shape_xyz=(20, 20, 12), tol=5e-3, steps=4, dt=4e-4) -> str:
+def case_moving(shape_xyz=(20, 20, 12), tol=5e-3, steps=4, dt=4e-4,
+                jump=0.0) -> str:
     """Moving coil over a conducting plate (ec_src_move_hole.vxc-like):
     the coil follows an elliptic path via Vmx/Vmy velocity functions."""
     nx, ny, nz = shape_xyz
@@ -126,7 +127,7 @@ def case_moving(shape_xyz=(20, 20, 12), tol=5e-3, steps=4, dt=4e-4) -> str:
         "axm D=1 SRCx=Fm Vsx=Vmx Vsy=Vmy",
         "ayp D=1 SRCy=Fp Vsx=Vmx Vsy=Vmy",
         "aym D=1 SRCy=Fm Vsx=Vmx Vsy=Vmy",
-        f"param tran stop={steps * dt} step={dt}",
+        f"param tran stop={steps * dt} step={dt} jump={jump}",
         f"p2 solver tol={tol} itmax=10000 dir=out",
         f"f1 func Fp=a*cos(p2*f*t) a={amp} p2='2*pi' f=50 t=t",
         f"f2 func Fm=-a*cos(p2*f*t) a={amp} p2='2*pi' f=50 t=t",
@@ -136,7 +137,8 @@ def case_moving(shape_xyz=(20, 20, 12), tol=5e-3, steps=4, dt=4e-4) -> str:
     return make_vxc_text(shape_xyz, 0.004, names, geo.ravel())
 
 
-def case_lim(shape_xyz=(36, 12, 10), tol=5e-3, steps=6, dt=1e-3) -> str:
+def case_lim(shape_xyz=(36, 12, 10), tol=5e-3, steps=6, dt=1e-3,
+             jump=0.0) -> str:
     """Linear-induction-machine-like case (LIM.vxc-like): three-phase coil
     pairs sliding along x over a conducting bar via a reciprocating Vsx."""
     nx, ny, nz = shape_xyz
@@ -155,7 +157,7 @@ def case_lim(shape_xyz=(36, 12, 10), tol=5e-3, steps=6, dt=1e-3) -> str:
         "am D=1 SRCy=Iam Vsx=Vx",
         "bm D=1 SRCy=Ibm Vsx=Vx",
         "cm D=1 SRCy=Icm Vsx=Vx",
-        f"param tran stop={steps * dt} step={dt}",
+        f"param tran stop={steps * dt} step={dt} jump={jump}",
         f"p2 solver tol={tol} itmax=10000 dir=out",
         f"f1 func Iap=a*cosd(360*f*t) a={amp} f=50 t=t",
         f"f2 func Ibp=a*cosd(360*f*t+120) a={amp} f=50 t=t",

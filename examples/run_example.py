@@ -4,7 +4,7 @@
 Usage: python examples/run_example.py path/to/case.vxc [outdir]
 
 Equivalent of running the reference EC3D executable with ``in.vxc`` in the
-working directory — but on TPU (or any JAX backend), with per-step solver
+working directory — but on a GPU (or any JAX backend), with per-step solver
 diagnostics printed.
 """
 

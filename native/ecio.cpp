@@ -3,7 +3,7 @@
 // reference's utilites.f90:3-293); produces byte-identical files and is
 // used via ctypes when built, with the numpy implementation as fallback.
 //
-// Build: make -C native   (produces eddy_currents_3d_tpu/io/_libecio.so)
+// Build: make -C native   (or the first-use build in io/native.py)
 
 #include <cstdint>
 #include <cstdio>

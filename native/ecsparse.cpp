@@ -3,11 +3,11 @@
 // Hosts the inherently *sequential* factorization work that XLA cannot
 // express (data-dependent row-by-row elimination): ILU(0) on CSR.  The
 // factors themselves are applied on-device (solvers/ilu0.py) — this file is
-// the once-per-assembly host step, the TPU-native analogue of the
+// the once-per-assembly host step, the analogue of the
 // compiled-Fortran tier in the reference (which runs everything on host;
 // solvers.f90 runs unpreconditioned, so this is a new capability).
 //
-// Build: make -C native   (or the auto-build in ops/native.py)
+// Build: make -C native   (or the first-use build in ops/native.py)
 
 #include <cstdint>
 #include <vector>
@@ -63,7 +63,7 @@ int64_t ec3d_ilu0(int64_t n,
 }
 
 // Exact sequential triangular solves on the packed ILU(0) factors — used by
-// the CPU validation path and tests (the TPU path applies the factors with
+// the CPU validation path and tests (the device path applies the factors with
 // fixed-sweep Jacobi iterations instead; see solvers/ilu0.py).
 //
 // Solves L y = b (unit lower) then U x = y, writing x over b.

@@ -1,7 +1,7 @@
 """Golden regression on the reference's headline TEAM7-modified case.
 
 PROVENANCE: tests/goldens/team7_10step.npz is this framework's *own* f64
-output (committed with the round-1 Pallas work) — a fast regression pin
+output (committed with the first stencil operator) — a fast regression pin
 against unintended change, NOT an independent check.  The independent
 production-scale anchor is tests/goldens/team7_oracle.npz (generated by
 the per-cell Fortran-style transcription, see test_oracle_golden.py),

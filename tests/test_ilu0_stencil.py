@@ -121,33 +121,6 @@ def test_shared_block_invariant():
             np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
-def test_pallas_padded_factors_match_jnp(rng):
-    """pallas=True materializes the same preconditioner map in padded
-    space (fused-kernel operators, interpret mode on CPU)."""
-    from eddy_currents_3d_tpu.ops import pallas_stencil as ps
-    from eddy_currents_3d_tpu.solvers.ilu0 import ilu0_stencil_factorize
-
-    model = load_case(case_static(shape_xyz=(14, 12, 10), steps=2))
-    sysm = assemble_operator(model, jnp.float64)
-    st_jnp = ilu0_stencil_factorize(sysm, model, dtype=jnp.float64)
-    prev = ps.INTERPRET
-    ps.INTERPRET = True
-    try:
-        st_pl = ilu0_stencil_factorize(sysm, model, dtype=jnp.float64,
-                                       pallas=True)
-        assert st_pl.padded
-        v = _rand_state(model, sysm.shape_zyx, rng)
-        want = st_jnp.apply(v, sweeps=2)
-        vp = st_pl.L_op.pad_state(v)
-        got = st_pl.L_op.unpad_state(st_pl.apply(vp, sweeps=2))
-    finally:
-        ps.INTERPRET = prev
-    np.testing.assert_allclose(np.asarray(got.A), np.asarray(want.A),
-                               rtol=1e-11, atol=1e-13)
-    np.testing.assert_allclose(np.asarray(got.U), np.asarray(want.U),
-                               rtol=1e-11, atol=1e-13)
-
-
 def test_simulation_stencil_ilu0_converges():
     """Simulation(precond='ilu0') runs the stencil form and matches the
     unpreconditioned fields within the solve tolerance."""

@@ -105,18 +105,3 @@ def test_mg_preconditioned_simulation_matches_plain():
     assert int(np.sum(d_m["iterations"])) < int(np.sum(d_p["iterations"]))
     scale = float(np.abs(np.asarray(st_p.A)).max())
     assert float(np.abs(np.asarray(st_m.A) - np.asarray(st_p.A)).max()) < 2e-2 * scale
-
-
-def test_mg_rejects_scale256_class():
-    """256³-class models must get a typed, explanatory rejection up front
-    (round-4 VERDICT weak #3) instead of a remote-compile crash."""
-    import numpy as np
-    import pytest
-    from eddy_currents_3d_tpu.solvers.multigrid import (
-        MG_CELL_LIMIT, MgUnsupported, build_mg)
-
-    nz, ny, nx = 64, 256, 256
-    assert nz * ny * nx > MG_CELL_LIMIT
-    ka = np.zeros((7, nz, ny, nx), np.float32)
-    with pytest.raises(MgUnsupported, match="cells"):
-        build_mg(ka)

@@ -98,7 +98,7 @@ def test_mesh_run_stores_one_coefficient_copy():
     assert sim.system.matrix_stats()["nnz"] > 0
     # GSPMD tier (shard_op off) still places the streams it solves with
     sim2 = Simulation(model, dtype=jnp.float32, mesh=make_mesh(2, 1),
-                      use_shard_map=False, use_pallas=False)
+                      use_shard_map=False)
     assert sim2.shard_op is None and sim2.system.op.ka.size > 0
 
 

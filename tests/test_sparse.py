@@ -1,6 +1,7 @@
 """General sparse tier (ops/sparse.py) vs scipy."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 from scipy import sparse
 
@@ -112,17 +113,17 @@ def test_spgemm_plan_reuse(rng):
         np.testing.assert_allclose(np.asarray(c.todense()), want, rtol=1e-12, atol=1e-13)
 
 
-def test_pallas_bsr_spmm_interpret(rng):
-    from eddy_currents_3d_tpu.ops import pallas_sparse
+def test_bsr_spmm_float32_full_precision(rng):
+    """The float32 block product is pinned to full float32 precision: a
+    TF32 contraction (about three decimal digits) would miss this bound."""
     from eddy_currents_3d_tpu.ops.sparse import bsr_from_scipy
 
     m = _rand_csr(rng, n=64, density=0.1)
-    b = bsr_from_scipy(m, block_shape=(8, 16), dtype=jnp.float64)
-    x = rng.standard_normal((b.shape[1], 4))
-    old = pallas_sparse.INTERPRET
-    pallas_sparse.INTERPRET = True
-    try:
-        y = pallas_sparse.bsr_spmm(b, jnp.asarray(x))
-    finally:
-        pallas_sparse.INTERPRET = old
-    np.testing.assert_allclose(np.asarray(y), np.asarray(b.todense()) @ x, rtol=1e-11)
+    b = bsr_from_scipy(m, block_shape=(8, 16), dtype=jnp.float32)
+    x = rng.standard_normal((b.shape[1], 4)).astype(np.float32)
+    hlo = jax.jit(b.matmat).lower(jnp.asarray(x)).as_text()
+    assert "HIGHEST" in hlo
+    y = b.matmat(jnp.asarray(x))
+    want = np.asarray(b.todense(), np.float64) @ x.astype(np.float64)
+    np.testing.assert_allclose(np.asarray(y, np.float64), want,
+                               rtol=1e-5, atol=1e-5 * np.abs(want).max())
